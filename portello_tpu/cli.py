@@ -2,8 +2,9 @@
 
 Flags mirror the reference: --assembly-to-ref, --read-to-assembly,
 --remapped-read-output ('-' = uncompressed stdout BAM),
---unassembled-read-output, --ref, --target-region, --threads; plus TPU-native
-extensions (--device, --batch-size) the reference has no equivalent for.
+--unassembled-read-output, --ref, --target-region, --threads; plus
+device-path extensions (--device, --batch-size) the reference has no
+equivalent for.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=PROGRAM_NAME,
         description=(
-            "TPU-native liftover of HiFi read alignments from de novo assembly "
-            "contigs onto a reference genome"
+            "Batched JAX liftover of HiFi read alignments from de novo "
+            "assembly contigs onto a reference genome"
         ),
     )
     p.add_argument("--version", action="version", version=f"{PROGRAM_NAME} {PROGRAM_VERSION}")
@@ -79,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="Number of host threads (default: all logical cpus)",
     )
     p.add_argument(
-        "--device", choices=["auto", "tpu", "cpu", "host"], default="auto",
-        help="Compute path: TPU/CPU device kernels, or pure-host engine",
+        "--device", choices=["auto", "gpu", "cpu", "host"], default="auto",
+        help="Compute path: device kernels on the GPU or the CPU (auto = "
+        "JAX's default backend), or the pure-host engine",
     )
     p.add_argument(
         "--profile", default=None, metavar="DIR",

@@ -8,10 +8,10 @@
 // (lib/rust-vc-utils/src/bam_utils/cigar/mod.rs:204-291).
 //
 // Two roles:
-//  1. BASELINE PROXY (BASELINE.md): no Rust toolchain exists in this image,
-//     so this measures what a compiled multithreaded CPU implementation of
-//     the same per-read algorithm achieves — the honest denominator for the
-//     TPU reads/s/chip headline.
+//  1. BASELINE PROXY (BASELINE.md): no Rust toolchain is available, so this
+//     measures what a compiled multithreaded CPU implementation of the same
+//     per-read algorithm achieves — the denominator for the device
+//     reads/s headline.
 //  2. Fast host path: a native alternative to the Python oracle for
 //     fallback items (bit-identical; enforced by tests/test_native_core.py).
 //

@@ -44,7 +44,7 @@ namespace {
 // Watchdog condvar wait: identical blocking semantics, but after each 120 s
 // without the predicate it logs WHERE it is stuck plus a caller-supplied
 // state line, then keeps waiting.  Converts any future lost-wakeup /
-// deadlock (ROUND5.md flake note) into a self-diagnosing stderr report
+// deadlock into a self-diagnosing stderr report
 // instead of a silent hang.  PTPU_WATCHDOG_SECS overrides the period
 // (test harnesses shorten it to capture diagnoses quickly).
 inline int wd_secs() {

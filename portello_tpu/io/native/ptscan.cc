@@ -643,7 +643,7 @@ struct Accum {
 
 // Persistent work pool: the fork-join parallel_for spawned + joined
 // threads on every prepare/fill group, which measured ~2x the actual CPU
-// of the work at 18 kb chunks (profile_feed prep split).  Workers park on
+// of the work at 18 kb chunks (host prep profile).  Workers park on
 // a cv between epochs; the caller participates and waits until the epoch's
 // items are all done AND every worker has left the epoch (a straggler may
 // grab one stale ticket after the last item completes — it sees i >= n and
@@ -667,7 +667,7 @@ struct WorkPool {
   // and reproduced by ptscan_dbg_pool_stress).  That one stale call both
   // corrupts memory through the dead closure's captures and steals an item
   // of the live epoch — the wandering RA>=2 suite crashes/hangs
-  // (ROUND5.md).  `in_flight` is true only while a pool_run is between
+  // before this gate.  `in_flight` is true only while a pool_run is between
   // epoch publish and completion-observed, both transitions under `mu`, so
   // a worker can only enter an epoch whose fn is still alive (its ++active
   // then blocks pool_run's return until it leaves).
@@ -1751,7 +1751,7 @@ void fill_item_row(const Scanner& sc, ReadState& rs, const Item& it,
   }
 }
 
-// Fine-grained prep profile (scripts/profile_feed.py; process-global,
+// Fine-grained prep profile (process-global,
 // relaxed atomics — measurement only)
 std::atomic<long long> g_prep_parse{0}, g_prep_seq{0}, g_prep_sa{0},
     g_prep_items{0}, g_prep_rc{0};
@@ -1936,7 +1936,7 @@ void commit_read(Scanner& sc, std::unique_ptr<ReadState> rs,
 // (pipeline/contig_scan.process_record / _add_primary_read; reference
 // contig_alignment_scanner/mod.rs:91-183).  The Python walk stays as the
 // oracle; this native batch engine removes the ~215 us/record of GIL-bound
-// small-array numpy that capped phase-1 thread scaling (PERF.md round 3).
+// small-array numpy that capped phase-1 thread scaling.
 // ---------------------------------------------------------------------------
 
 constexpr int kFSECONDARY = 0x100;
@@ -2230,12 +2230,12 @@ void* ptscan_create(
     sc.resident = resident_mode != 0 && sc.host_shift;
   }
   // Parallel BGZF readahead: the serial inflate in the framing loop was the
-  // measured host-feed ceiling (~42 us/item at 18 kb; PERF.md phase split).
+  // measured host-feed ceiling (~42 us/item at 18 kb on a 4-core host).
   // Default width = prep_threads - 1 (floor 2): with the round-5 resident
   // fill the producer's other legs got light enough that a full-width
   // readahead pool CONTENDS with prepare/fill/finisher on small hosts —
   // RA=3 vs 4 on the 4-core box cut the read leg 0.10 -> 0.03-0.05 s and
-  // lifted feed capacity ~25% (PERF.md round 5).  PTPU_RA_THREADS overrides.
+  // lifted feed capacity ~25%.  PTPU_RA_THREADS overrides.
   // (An earlier attempt to ship this default was reverted after suite
   // hangs/crashes; the root cause was the WorkPool stale-epoch closure
   // invocation — see the `in_flight` comment above — which the changed RA

@@ -1,7 +1,7 @@
-"""JAX/XLA/Pallas device kernels: fixed-shape, batched formulations of the
+"""JAX/XLA device kernels: fixed-shape, batched formulations of the
 alignment algebra in ``portello_tpu.ops``.
 
-Design notes (TPU-first):
+Design notes:
 
 - CIGARs are padded ``int32`` code/length vectors (PAD code 9); batches are
   bucketed by maximum op count so every kernel compiles once per bucket shape.
@@ -9,7 +9,7 @@ Design notes (TPU-first):
   map-block entries (reference src/liftover_read_alignment.rs:137-223) — becomes a
   fixed-length two-pointer ``lax.scan`` (one "update call" per step, bounded by
   ``2*max_ops + max_blocks`` steps), vmapped across the read batch so every scan
-  step is a wide VPU vector op.
+  step is a wide vector op.
 - Run-length compression and edge-indel cleanup are data-parallel scatter/
   segment-sum passes, not sequential walks.
 - Sequence-dependent passes (indel simplification / shifting) compare bases over

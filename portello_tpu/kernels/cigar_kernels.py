@@ -47,9 +47,8 @@ def clean_up_edge_indels(codes, lens):
     am = is_align_match(codes) & valid
     any_am = am.any()
     idx = jnp.arange(n, dtype=jnp.int32)
-    # argmax-of-flip, deliberately: the masked min/max reduction form
-    # measured consistently ~5-15% SLOWER on the full fwd graph
-    # (scripts/profile_lean4.py, round 4) despite removing the reverse
+    # argmax-of-flip; the masked min/max reduction form is the untried
+    # alternative
     first = jnp.where(any_am, jnp.argmax(am).astype(jnp.int32), jnp.int32(n))
     last = jnp.where(
         any_am, jnp.int32(n) - 1 - jnp.argmax(am[::-1]).astype(jnp.int32),
@@ -71,22 +70,19 @@ def compress(codes, lens, max_out: int, mm: bool = False,
     """Vectorized compress_cigar (cigar/mod.rs:204-228), scatter-free.
 
     Drops zero-length and PAD entries, then merges adjacent equal-code runs.
-    TPU scatters serialize, so the whole pass is built from prefix sums,
+    No scatter: the whole pass is built from prefix sums,
     a packed running maximum (to find each element's previous kept code) and
     either one segment-sum matmul (``mm_form="segsum"``) or boundary
     compare-counts + a one-hot prefix-table lookup (``mm_form="search"``);
     searchsorted + take_along_axis when ``mm`` is False.  The two mm forms
-    are bit-identical; which is faster depends on the surrounding graph
-    (measured in-context per call site: segsum wins inside the fwd pipeline,
-    search wins 4x inside shift stage B — scripts/profile_shiftb.py,
-    profile_fwd_compress.py).
+    are bit-identical; which is faster depends on the surrounding graph, so
+    each call site picks its form.
     Returns (out_codes, out_lens, n_out, overflow); ``overflow`` is True when
     the compressed cigar exceeds ``max_out`` ops.
     """
     n = codes.shape[0]
     # The inputs often come from gather-built emission streams; a barrier here
-    # keeps those gathers from being fused into (and serializing) the prefix
-    # scans below (see scripts/profile_isolate.py).
+    # keeps those gathers from being fused into the prefix scans below.
     codes, lens = jax.lax.optimization_barrier((codes, lens))
     keep = (codes != PAD) & (lens != 0)
     idx = jnp.arange(n, dtype=jnp.int32)

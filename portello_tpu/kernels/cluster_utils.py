@@ -55,7 +55,7 @@ def find_clusters(codes, lens, ref_pos, max_clusters: int, mm: bool = False):
 
     ref_starts, read_starts = op_positions(codes, lens, ref_pos)
 
-    # Scatter-free per-cluster reductions (TPU scatters serialize).
+    # Scatter-free per-cluster reductions (segment sums, no scatter).
     k = jnp.arange(max_clusters, dtype=jnp.int32)
     cvalid = k < n_clusters
     del_src = jnp.where((codes == D) & valid, lens, 0)
@@ -126,8 +126,8 @@ def find_clusters(codes, lens, ref_pos, max_clusters: int, mm: bool = False):
 def _window_bytes(seq, start, window: int, fill: int):
     """Extract (C, window) byte windows starting at ``start``.
 
-    Gathers 4-byte WORDS instead of bytes (4x fewer gather elements — gather
-    throughput on TPU is per element, PERF.md) then re-aligns the sub-word
+    Gathers 4-byte WORDS instead of bytes (4x fewer gather elements) then
+    re-aligns the sub-word
     offset with a 4-way select.  ``seq`` length must be a multiple of 4.  The
     sequence is padded with ``fill`` sentinel bytes on both sides so windows
     reaching past either end stay lane-aligned (pass DIFFERENT fills for the
@@ -167,8 +167,8 @@ def _window_bytes_mm(seq, start, window: int, fill: int):
     one one-hot matmul over the superblock axis (exact for bytes,
     kernels/expand.py).  Level 2: the residual offset o in [0, 64) is removed
     with a 16-way 4-byte-step select then a 4-way byte select — all VPU
-    elementwise.  Replaces a C*(window/4+2)-index gather (~95M idx/s on TPU)
-    with MXU+VPU work that is effectively free.
+    elementwise.  Replaces a C*(window/4+2)-index gather with one matrix
+    product and elementwise selects.
 
     Caller contract (same as the gather path): ``start`` >= -window and
     <= len(seq); out-of-data lanes are filled with ``fill`` so differing
@@ -195,9 +195,9 @@ def _window_bytes_mm(seq, start, window: int, fill: int):
     p = start + pad_lo
     sb = jnp.clip(p >> 6, 0, nsb - 2)
     o = p - (sb << 6)
-    # Two matmuls against the raw 64-byte-superblock table beat one against a
-    # 128-wide adjacent-pair table 2.1x (scripts/profile_window.py: the
-    # concat forces a strided matmul operand).  Both share ONE one-hot mask —
+    # Two matmuls against the raw 64-byte-superblock table rather than one
+    # against a 128-wide adjacent-pair table, whose concat forces a strided
+    # matmul operand.  Both share ONE one-hot mask —
     # onehot(sb+1) @ table == onehot(sb) @ table[1:] — halving the dominant
     # HBM term (the materialized (C, nsb) mask).
     mask = onehot_eq(sb, nsb - 1)
@@ -230,13 +230,12 @@ def _window_bytes_mm(seq, start, window: int, fill: int):
 
 def _window_bytes_mm_t(seq, start, window: int, fill: int):
     """Transposed :func:`_window_bytes_mm`: returns (window, C) with the
-    cluster axis LAST (the TPU lane dimension).
+    cluster axis LAST (the minor, contiguous dimension).
 
-    The realign selects then run at full 128-lane width with the big axis
-    minor — the (C, words) layout wastes >100 of 128 lanes on its ~14-wide
-    minor dim and measured ~8x slower (scripts/profile_window.py).  Bonus:
-    with bytes on the sublane axis the realign is a plain 6-stage byte-
-    granularity barrel shifter — no word bitcast or sub-word bit combine.
+    The realign selects then run with the big axis minor instead of the
+    ~14-wide word axis of the (C, words) layout.  With bytes on the major
+    axis the realign is a plain 6-stage byte-granularity barrel shifter —
+    no word bitcast or sub-word bit combine.
     """
     if window > 60:
         raise ValueError("window must be <= 60 for the 128-byte span")
@@ -256,12 +255,10 @@ def _window_bytes_mm_t(seq, start, window: int, fill: int):
     sb = jnp.clip(p >> 6, 0, nsb - 2)
     o = p - (sb << 6)
     # Mask-LHS expansion: span = mask @ table with the table in its NATURAL
-    # layout — the whole-table bf16 transpose the table-LHS form needs is a
-    # (nsb, 64) relayout per call and measured ~40% of the fetch; here only
-    # the tiny (C, 128) span is transposed (scripts/profile_realign4.py:
-    # 0.33 -> 0.19 ms).  One shared (C, nsb-1) bf16 mask serves both
-    # superblocks (byte values <= 255 are exact in bf16 products; see
-    # kernels/expand.py — int8 dots lower SLOWER on this TPU, measured 4x).
+    # layout — the table-LHS form needs a whole-table (nsb, 64) bf16
+    # transpose per call; here only the small (C, 128) span is transposed.
+    # One shared (C, nsb-1) bf16 mask serves both superblocks (byte values
+    # <= 255 are exact in bf16 products; see kernels/expand.py).
     mask = (
         sb[:, None] == jnp.arange(nsb - 1, dtype=jnp.int32)[None, :]
     ).astype(jnp.bfloat16)

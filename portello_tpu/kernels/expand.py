@@ -1,13 +1,11 @@
 """Backend-adaptive expansion primitives: index gathers and sorted search.
 
-XLA lowers general gathers on TPU to a serialized per-index loop (~95M
-indices/s measured; PERF.md), while dense f32/bf16 matmuls at these shapes
-are effectively free on the MXU.  Any gather whose index domain is a small
-static ``K`` can therefore be computed as a one-hot ``(R, K)`` mask matmul
-against the table split into byte planes:
+Any gather whose index domain is a small static ``K`` can be computed as a
+one-hot ``(R, K)`` mask matmul against the table split into byte planes,
+which replaces a general gather with a dense matrix product:
 
 - the mask is {0, 1} and byte-plane values are <= 255, both exact in
-  bfloat16, so each MXU product is exact in its f32 accumulator;
+  bfloat16, so each product is exact in its f32 accumulator;
 - each output row sums exactly one nonzero product, so no rounding can
   occur regardless of accumulation order.
 
@@ -16,12 +14,11 @@ INT32_MAX pads, via uint32 byte slicing) — enforced against
 ``take_along_axis`` by tests/test_expand.py.
 
 ``searchsorted`` over small key sets is replaced by compare-and-count
-reductions (pure VPU, effectively free on TPU and comparable to
-``method="sort"`` on CPU).
+reductions (elementwise compares and a sum).
 
-Every kernel threads a static ``mm`` flag (chosen by the engine per
-backend: matmul on TPU, native gathers on CPU where XLA gathers are cheap
-and small matmuls are not).
+Every kernel threads a static ``mm`` flag, chosen per backend by
+``portello_tpu.backend.select_dispatch`` (native gathers on the CPU, where
+XLA gathers are cheap and small matmuls are not).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched liftover kernel: the hot inner loop of the framework.
 
-TPU-native reformulation of the reference's liftover core
+Data-parallel reformulation of the reference's liftover core
 (reference src/liftover_read_alignment.rs:35-223).  The reference walks the
 read->contig CIGAR with a nested iteration over contig->ref map blocks; here that
 nested walk becomes a **fixed-length two-pointer ``lax.scan``**: each scan step

@@ -2,9 +2,9 @@
 
 The reference's nested walk (src/liftover_read_alignment.rs:137-223) — and the
 v1 ``lax.scan`` port in ``liftover_kernel`` — process one (op x block) update
-per step.  On TPU a sequential scan of ~2k steps with per-step lane gathers is
-latency-bound, so this module reformulates liftover as a **data-parallel
-interval join**:
+per step.  A sequential scan of ~2k steps with per-step gathers is
+latency-bound on a parallel device, so this module reformulates liftover as
+a **data-parallel interval join**:
 
 1. Every update call of the reference corresponds to one row of a static
    "update grid" of size ``U = 2*max_ops + max_blocks`` (the same bound that
@@ -47,8 +47,7 @@ def _liftover_parallel_single(ops, lens, n_ops, ref1_pos, bk, bv, nb, mm: bool =
     ref2_start, row_overflow) with 2 emission slots per update row.
 
     ``mm`` selects the one-hot-matmul / count-compare formulation of the row
-    expansions and block searches (bit-identical; ~10-100x faster on TPU where
-    XLA serializes gathers — kernels/expand.py, PERF.md).
+    expansions and block searches (bit-identical; kernels/expand.py).
 
     ``max_rows`` overrides the worst-case update-grid height ``2*max_ops +
     max_blocks`` (every op ref-consuming) with a measured-percentile bound;
@@ -109,9 +108,9 @@ def _liftover_parallel_single(ops, lens, n_ops, ref1_pos, bk, bv, nb, mm: bool =
     r = jnp.arange(U, dtype=jnp.int32)
     row_valid = r < total_rows
 
-    # One packed-row expansion for all per-op values: contiguous multi-element
-    # slices per index are ~14x faster than separate gathers on TPU, and the
-    # one-hot interval-mask matmul another ~16x (PERF.md / scripts profiling).
+    # One packed-row expansion for all per-op values: one gather of
+    # contiguous rows instead of a gather per value (or one one-hot
+    # interval-mask matmul in mm mode).
     # Rows past total_rows expand to zero in mm mode and to op max_ops-1's
     # values in gather mode; every consumer below masks with row_valid.
     op_table = jnp.stack(

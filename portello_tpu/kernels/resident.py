@@ -1,34 +1,32 @@
 """Device-resident reference windows + packed read-sequence rows.
 
-Round-5 reformulation of the simplify window path (VERDICT r4 #1a/#2).  The
-production forward graph consumed two (B, max_seq) uint8 tables — a per-item
-reference window and the decoded read sequence — whose only use is the
-G-slot compacted window compare (simplify_kernel.simplify_batch_compact).
-Filling + transferring + bf16-converting those tables was the dominant
-remaining cost on both sides of the PCIe/ICI boundary:
+A reformulation of the simplify window path.  The table forward graph
+consumes two (B, max_seq) uint8 tables — a per-item reference window and
+the decoded read sequence — whose only use is the G-slot compacted window
+compare (simplify_kernel.simplify_batch_compact).  Filling, transferring
+and bf16-converting those tables costs on both sides of the host-device
+link:
 
-- host fill: a 24 KB reference memcpy + an 18 KB nibble decode per item
-  (the largest producer term in the feed, PERF.md round 4);
+- host fill: a 24 KB reference memcpy + an 18 KB nibble decode per item;
 - H2D: ~25 MB per 512-batch;
-- on chip: two (B, max_seq) uint8->bf16 table conversions per batch feeding
-  the slot-row one-hot dots.
+- on the device: two (B, max_seq) uint8->bf16 table conversions per batch
+  feeding the slot-row one-hot dots.
 
 This module replaces both tables:
 
-- **Reference**: the whole genome stays resident in HBM as a 64-byte
-  superblock table (built once per run).  Each slot's two 48-byte windows
-  are fetched with a tiny 2-row gather (2*2*G rows of 16 words — thousands
-  of elements, far below the gather wall) + the standard barrel realign.
+- **Reference**: the whole genome stays resident in device memory as a
+  64-byte superblock table (built once per run).  Each slot's two 48-byte
+  windows are fetched with a tiny 2-row gather (2*2*G rows of 16 words —
+  thousands of elements) + the standard barrel realign.
   The per-item ``ref_win`` array, its host fill, and its H2D vanish.
 - **Read sequence**: transferred PACKED (B, max_seq/2) in the BAM 4-bit
   code domain (a straight memcpy of the raw record bytes on the host —
   the AVX2 nibble decode disappears from the fill).  The slot-row one-hot
   dot runs on the packed table (half the traffic); only the G fetched
   windows (~25 packed bytes each) are widened back to ASCII on device.
-  This is the round-4 "packed H2D" idea with the unpack folded BEHIND the
-  compaction instead of in front of the whole batch — the (512, 24576)
-  relayout that measured 2x slower (scripts/profile_unpack.py) never
-  happens; the widening touches (G, ~50) elements.
+  The unpack sits BEHIND the compaction instead of in front of the whole
+  batch, so no (512, 24576) relayout happens; the widening touches
+  (G, ~50) elements.
 
 Exactness: window bytes compare in the ASCII domain on both sides —
 reference bytes are the genome's raw bytes, read bytes decode through the

@@ -1,6 +1,6 @@
 """Batched indel left-shift kernel (for reads on reverse-mapped contigs).
 
-TPU-native reformulation of left_shift_indels
+Data-parallel reformulation of left_shift_indels
 (reference shift_indels/left_shift_indels.rs:17-39 + cigar_indel_shifter.rs:10-165):
 
 - per-cluster homology lengths come from one bounded-window vectorized suffix
@@ -12,8 +12,8 @@ TPU-native reformulation of left_shift_indels
   ``p_i = min(b_i, a_i + p_{i-1})``.  Because the additive part is scalar it
   has the closed form ``p_i = SA_i + min_{j<=i}(b_j - SA_j)`` with
   ``SA = cumsum(a)``: one prefix sum plus one running minimum, both cheap
-  TPU-native primitives (an explicit ``associative_scan`` lowers poorly on
-  TPU at these sizes — measured 50x slower).  Per-op transform terms: match
+  primitives (no explicit ``associative_scan`` over affine pairs).  Per-op
+  transform terms: match
   op ``(a=len, b=+inf)`` (accumulate), cluster end ``(0, homology_cap)``
   (clamp), other op ``(0, 0)`` (flush/reset), everything else identity.
 
@@ -61,11 +61,9 @@ def _shift_stage_a(
 ):
     """Cluster detection + homology caps + per-op scan inputs.
 
-    Kept as a separate stage: when the homology gather chain and the prefix
-    scans of stage B compile into one XLA program, the gathers fuse into the
-    scans and serialize them (measured 100x slowdown,
-    scripts/profile_isolate.py); the engine runs A and B as separate device
-    calls with device-resident intermediates.
+    Kept as a separate stage so the homology gather chain cannot fuse into
+    stage B's prefix scans; on the gather path the engine runs A and B as
+    separate device calls with device-resident intermediates.
     """
     from portello_tpu.kernels.expand import expand_mask, onehot_eq
 
@@ -91,7 +89,7 @@ def _shift_stage_a(
     cid = jnp.clip(cl["cluster_id"], 0, max_clusters - 1)
 
     # One packed gather for every per-cluster value consumed at op positions
-    # (PERF.md: contiguous per-index slices beat separate gathers ~14x).
+    # (one gather of contiguous rows instead of one per value).
     c_table = jnp.stack(
         [
             h_cap.astype(jnp.int32),
@@ -212,9 +210,8 @@ def _shift_stage_b(
     flat_codes = jnp.concatenate([e_codes.reshape(-1), tail_code[None]])
     flat_lens = jnp.concatenate([e_lens.reshape(-1), pending_final[None]])
 
-    # mm_form="search": in stage B's graph the segment-sum compress measures
-    # 4x slower than the boundary-search form (the opposite of the fwd
-    # pipeline's in-context result) — scripts/profile_shiftb.py.
+    # mm_form="search": the boundary-search compress form in stage B's
+    # graph (the fwd pipeline uses the segment-sum form).
     f_codes, f_lens, n_out, shift, c_overflow = cleanup_and_compress(
         flat_codes, flat_lens, max_out, mm, mm_form="search"
     )

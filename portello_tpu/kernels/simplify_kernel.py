@@ -1,6 +1,6 @@
 """Batched indel-cluster simplification kernel.
 
-TPU-native reformulation of simplify_alignment_indels
+Data-parallel reformulation of simplify_alignment_indels
 (reference src/simplify_alignment_indels.rs:4-156): cluster detection and
 reductions are data-parallel scatter/segment ops; the reference's greedy
 per-base re-match loops (right edge first, then left edge, rs:54-92) become two
@@ -72,9 +72,9 @@ def _simplify_single(
 
         # Compact the mixed clusters into a small static budget so the
         # window fetches run over far fewer lanes; reads whose mixed count
-        # exceeds the budget fall back to the exact host path.  Measured
-        # HiFi-shape distribution: mean 0.05 mixed clusters per read, max 1
-        # (profile notes in PERF.md) — 8 is ~an order of magnitude of slack.
+        # exceeds the budget fall back to the exact host path.  HiFi-shape
+        # items carry ~0.05 mixed clusters per read, max 1, so 8 is ~an
+        # order of magnitude of slack.
         mx = max(8, max_clusters // 16)
         rank = jnp.cumsum(mixed.astype(jnp.int32)) - 1
         mixed_overflow = jnp.sum(mixed.astype(jnp.int32)) > mx
@@ -247,8 +247,8 @@ def _slot_windows_wordgather(rows, starts, window, fill):
     Word-granularity take_along_axis: each window needs window//4 + 1 int32
     words from its row (re-aligned by the sub-word byte offset), so the whole
     slot-window fetch is a single ~(G, W*(window//4+1)) gather — thousands of
-    elements, vs the per-slot superblock matmuls whose pad/convert/dot chain
-    dominated the round-4 fwd profile (scripts/profile_fwd4.py).  ``fill``
+    elements, vs the per-slot superblock matmuls' pad/convert/dot chain.
+    ``fill``
     pads out-of-range reads exactly like _window_bytes_mm_t (0xFE vs 0xFD
     never compare equal).  Bit-identical windows by construction.
     """
@@ -388,9 +388,9 @@ def simplify_batch_compact(
     (mm formulation).
 
     Mixed clusters are rare (~0.05/read), yet the per-item window compare
-    pays two full-sequence superblock-table conversions per item — the
-    dominant simplify cost (PERF.md "window-fetch wall").  Here the batch's
-    mixed (item, cluster) pairs are compacted to ``GBUDGET`` global slots;
+    pays two full-sequence superblock-table conversions per item.  Here the
+    batch's mixed (item, cluster) pairs are compacted to ``GBUDGET`` global
+    slots;
     only those slots' sequence ROWS are gathered (exact one-hot byte
     matmuls) and converted, cutting conversion traffic ~B/GBUDGET-fold.
     Reads whose mixed clusters exceed MXI per item or spill the global
@@ -407,11 +407,9 @@ def simplify_batch_compact(
     w = window
 
     def runs_fn(gst, gitem):
-        # fetch ONLY the slots' sequence rows.  Both forms are exact and
-        # measure the SAME in-context (scripts/profile_rowfetch.py: the
-        # (B, L) table conversion the one-hot dot needs is not a bottleneck
-        # at G=64 slots); one-hot is the shipped default, the row take kept
-        # as the A/B record.  Empty slots (gitem 0 from the zero mask row)
+        # fetch ONLY the slots' sequence rows.  Both forms are exact; the
+        # one-hot dot is the default, the row take its alternative.  Empty
+        # slots (gitem 0 from the zero mask row)
         # fetch row 0 harmlessly: their runs are never scattered back.
         if row_fetch == "gather":
             rows_a = jnp.take(ref_win, gitem, axis=0)
@@ -458,8 +456,8 @@ def simplify_batch_compact_resident(
     *, max_clusters, window, max_out,
 ):
     """``simplify_batch_compact`` with the reference device-resident and the
-    read rows packed (kernels/resident.py — round-5 window-path
-    reformulation; design + exactness argument in that module's docstring).
+    read rows packed (kernels/resident.py; design + exactness argument in
+    that module's docstring).
 
     ``ref_words``: (NSB, 16) uint32 global superblock table.
     ``g_sb``/``g_off``: (B,) int32 per-item global base of the window origin

@@ -59,45 +59,29 @@ def get_chrom_array(ref_filename: str, ref_chrom_list: ChromList, logger) -> lis
 
 
 def make_engine(settings: Settings, reference, contig_list, all_contig_mapping_info):
-    """Select the compute path: device batch engine or host oracle (None)."""
+    """Select the compute path: device batch engine or host oracle (None).
+
+    A device engine that cannot start fails the run; it is never swapped
+    for the host path behind the user's back."""
     if settings.device == "host":
         return None
-    try:
-        import jax
+    from portello_tpu.backend import check_platform, configure_compile_cache
 
-        if settings.device == "cpu":
-            # Select the backend before anything touches jax devices.
-            jax.config.update("jax_platforms", "cpu")
-        # Persistent compilation cache: bucket shapes are stable, so repeat
-        # runs skip all XLA compiles.
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "portello_tpu", "xla"
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        from portello_tpu.models.pipeline_model import DeviceEngine
+    check_platform(settings.device)
+    configure_compile_cache()
+    from portello_tpu.models.pipeline_model import DeviceEngine
 
-        # PTPU_MM=1/0 forces the kernel formulation (one-hot-matmul vs
-        # gather) regardless of backend — debugging / CLI-level conformance
-        # drives of the TPU-production graphs on CPU.
-        force_mm = {"1": True, "0": False}.get(os.environ.get("PTPU_MM", ""))
-        return DeviceEngine(
-            reference,
-            contig_list,
-            all_contig_mapping_info,
-            batch_size=settings.batch_size,
-            platform=None if settings.device == "auto" else settings.device,
-            use_mm=force_mm,
-        )
-    except Exception as e:  # pragma: no cover - device-availability dependent
-        setup_logger().warning(
-            f"Device engine unavailable ({e}); using host compute path"
-        )
-        return None
+    return DeviceEngine(
+        reference,
+        contig_list,
+        all_contig_mapping_info,
+        batch_size=settings.batch_size,
+    )
 
 
-def run(settings: Settings, preloaded_reference=None) -> None:
+def run(settings: Settings, preloaded_reference=None) -> dict | None:
+    """One pipeline run; returns the native feed's stats (None on the
+    Python feed or the host path)."""
     logger = setup_logger()
     cmdline = " ".join(sys.argv)
     logger.info(f"Starting {PROGRAM_NAME} {PROGRAM_VERSION}")
@@ -105,16 +89,17 @@ def run(settings: Settings, preloaded_reference=None) -> None:
     logger.info(f"Running on {settings.thread_count} threads")
     start = time.monotonic()
 
+    if settings.device != "host":
+        # the platform choice is pinned before anything starts a backend
+        from portello_tpu.backend import set_platform
+
+        set_platform(settings.device)
     if settings.num_hosts > 1 and settings.coordinator:
         # jax.distributed.initialize must precede ANY backend touch (even
         # jax.devices), so the DCN handshake happens before phase 1 / the
-        # engine build; the platform choice must also be pinned first
+        # engine build
         from portello_tpu.parallel.distributed import init_distributed
 
-        if settings.device == "cpu":
-            import jax
-
-            jax.config.update("jax_platforms", "cpu")
         init_distributed(
             settings.coordinator, settings.num_hosts, settings.host_id
         )
@@ -237,13 +222,14 @@ def run(settings: Settings, preloaded_reference=None) -> None:
         except Exception as e:  # profiling is best-effort
             logger.warning(f"profiler unavailable: {e}")
 
+    stats = None
     with profile_ctx:
         if use_native_feed:
             from portello_tpu.pipeline.native_feed import (
                 scan_and_remap_reads_native,
             )
 
-            scan_and_remap_reads_native(
+            stats = scan_and_remap_reads_native(
                 scan_input,
                 remapped_out,
                 unassembled_out,
@@ -255,7 +241,6 @@ def run(settings: Settings, preloaded_reference=None) -> None:
                 batch_size=settings.batch_size,
                 thread_count=settings.thread_count,
                 shard_plan=shard_plan,
-                use_mm=engine.use_mm,
                 cram_reference=cram_reference,
             )
         else:
@@ -280,18 +265,23 @@ def run(settings: Settings, preloaded_reference=None) -> None:
     logger.info(
         f"{PROGRAM_NAME} completed. Total Runtime: {hh:02d}:{mm:02d}:{ss:06.3f}"
     )
+    return stats
 
 
-def _fork_workers(settings: Settings, n: int, logger) -> list[int]:
-    """Fork-based phase-2 fan-out (VERDICT r4 #4): the parent preloads the
-    heavyweight shared state ONCE — the package imports (jax included:
-    importing spawns no XLA runtime threads; each child initializes its own
-    backend after the fork) and the parsed reference FASTA — then forks, so
-    every worker inherits it copy-on-write instead of replaying ~3-4 s of
-    fixed startup cost.  PTPU_FORK_WORKERS=0 restores subprocess workers.
-    Returns the failed worker ids, or None when forking is unsafe (a live
-    XLA backend in this process would not survive the fork — the caller
-    falls back to subprocess workers)."""
+def _fork_workers(
+    settings: Settings, n: int, logger, cards: list[str] | None
+) -> list[int] | None:
+    """Fork-based phase-2 fan-out: the parent preloads the heavyweight
+    shared state ONCE — the package imports (jax included: importing
+    starts no backend; each child initializes its own after the fork), the
+    native libraries and the parsed reference FASTA — then forks, so every
+    worker inherits it copy-on-write instead of replaying ~3-4 s of fixed
+    startup cost.  ``cards``: the CUDA device each worker is pinned to (one
+    card per worker process), or None off the GPU.
+    PTPU_FORK_WORKERS=0 restores subprocess workers.  Returns the failed
+    worker ids, or None when forking is unsafe (a live XLA backend in this
+    process would not survive the fork — the caller falls back to
+    subprocess workers)."""
     import dataclasses
     import traceback
 
@@ -314,7 +304,13 @@ def _fork_workers(settings: Settings, n: int, logger) -> list[int]:
             return None
 
     import portello_tpu.models.pipeline_model  # noqa: F401
-    import portello_tpu.pipeline.native_feed  # noqa: F401
+    from portello_tpu.io import native_codec
+    from portello_tpu.ops import native_core
+    from portello_tpu.pipeline import native_feed
+
+    # build the native libraries here, not in N racing children
+    for lib in (native_feed, native_codec, native_core):
+        lib.get_lib()
 
     ref_cl = ChromList.from_bam_filename(settings.assembly_to_ref_bam)
     reference = get_chrom_array(settings.ref_filename, ref_cl, logger)
@@ -325,6 +321,8 @@ def _fork_workers(settings: Settings, n: int, logger) -> list[int]:
         if pid == 0:
             code = 1
             try:
+                if cards is not None:
+                    os.environ["CUDA_VISIBLE_DEVICES"] = cards[w]
                 child = dataclasses.replace(
                     settings, local_workers=1, num_hosts=n, host_id=w
                 )
@@ -346,6 +344,19 @@ def _fork_workers(settings: Settings, n: int, logger) -> list[int]:
         if os.waitstatus_to_exitcode(status) != 0:
             failed.append(w)
     return failed
+
+
+def _worker_cards(device: str, n: int) -> list[str] | None:
+    """The CUDA device of each worker when the workers run on GPUs (always
+    for --device gpu; for auto when this host has GPUs), else None."""
+    if device not in ("gpu", "auto"):
+        return None
+    from portello_tpu.backend import assign_worker_gpus, visible_gpus
+
+    gpus = visible_gpus()
+    if device == "auto" and not gpus:
+        return None
+    return assign_worker_gpus(n, gpus)
 
 
 def run_local_workers(settings: Settings, argv: list[str]) -> None:
@@ -439,10 +450,15 @@ def run_local_workers(settings: Settings, argv: list[str]) -> None:
         # htslib region fetches regardless of container format
         # (read_alignment_scanner.rs:382-394)
         logger.info(f"Running phase 2 across {n} local worker processes")
+        cards = _worker_cards(settings.device, n)
+        if cards is not None:
+            logger.info(f"Worker GPUs (CUDA_VISIBLE_DEVICES): {cards}")
         use_fork = hasattr(os, "fork") and (
             os.environ.get("PTPU_FORK_WORKERS", "1") != "0"
         )
-        failed = _fork_workers(settings, n, logger) if use_fork else None
+        failed = (
+            _fork_workers(settings, n, logger, cards) if use_fork else None
+        )
         if failed is None:
             procs = []
             for w in range(n):
@@ -450,7 +466,10 @@ def run_local_workers(settings: Settings, argv: list[str]) -> None:
                     sys.executable, "-m", "portello_tpu.main", *base_args,
                     "--num-hosts", str(n), "--host-id", str(w),
                 ]
-                procs.append(subprocess.Popen(cmd))
+                env = None
+                if cards is not None:
+                    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards[w])
+                procs.append(subprocess.Popen(cmd, env=env))
             failed = [w for w, p in enumerate(procs) if p.wait() != 0]
         if failed:
             raise SystemExit(f"worker processes failed: {failed}")
@@ -471,7 +490,8 @@ def run_local_workers(settings: Settings, argv: list[str]) -> None:
                 os.remove(t)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict | None:
+    """The CLI.  Returns the native feed's stats of a single-process run."""
     settings = parse_settings(argv)
     settings = validate_and_fix_settings(settings)
     setup_logger()
@@ -479,8 +499,8 @@ def main(argv=None) -> None:
         validate_settings_data(settings)
         if settings.local_workers > 1:
             run_local_workers(settings, list(argv if argv is not None else sys.argv[1:]))
-        else:
-            run(settings)
+            return None
+        return run(settings)
     except Exception as err:
         print(err, file=sys.stderr)
         sys.exit(2)

@@ -73,9 +73,7 @@ def _fwd_item(ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq,
         max_rows=max_rows
     )
     read_len = cigar_read_len(l_codes, l_lens)
-    # (A width+56 slice of the lifted cigar before simplify measured
-    # repeatably ~25% SLOWER despite the smaller static graph —
-    # scripts/profile_simp6.py; simplify consumes the full max_out width.)
+    # simplify consumes the full max_out width of the lifted cigar
     s_codes, s_lens, s_n, s_pos_rel, s_fb = _simplify_single(
         l_codes, l_lens, ref2_pos - ref_base, ref_win, read_seq,
         max_clusters=max_clusters, window=window, max_out=max_out, mm=mm,
@@ -93,9 +91,8 @@ def _rev_ops_bound(max_ops: int, max_out: int) -> int:
     rev-path liftover input).
 
     Exactly ``max_ops``: the rev fwd leg is capped there anyway (so it
-    shares the fwd graph's shapes), and any wider width crosses the 128-lane
-    tile, padding every op-wide tensor to 256 lanes (scripts/
-    profile_revslice.py: ~1.3x on the leg).  A left-shifted cigar has at
+    shares the fwd graph's shapes); a wider width would widen every op-wide
+    tensor of the leg.  A left-shifted cigar has at
     most (input runs + 1) runs (tests/test_shift_run_bound.py), so only
     bucket-edge reads can exceed; they fall back to the exact host path via
     the standard overflow flag."""
@@ -115,15 +112,12 @@ def _rev_item(ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
         max_clusters=max_clusters, window=window, max_out=bound, mm=mm,
     )
     # Stage seam: keep the shift's gather-built outputs from fusing into the
-    # liftover's prefix scans (TPU serialization pathology; see
-    # scripts/profile_isolate.py).
+    # liftover's prefix scans.
     sh_codes, sh_lens, sh_n, sh_pos = jax.lax.optimization_barrier(
         (sh_codes, sh_lens, sh_n, sh_pos)
     )
     # Cap the fwd leg at exactly max_ops so the rev leg is SHAPE-IDENTICAL
-    # to the fwd graph (one compiled program; a 136/160-wide ops axis crosses
-    # the 128-lane tile and pads every op-wide tensor to 256 lanes —
-    # measured ~1.5x on the whole leg, scripts/profile_revslice.py).  The
+    # to the fwd graph (one compiled program).  The
     # shifter adds at most one run (tests/test_shift_run_bound.py), so only
     # bucket-edge items (n_ops == max_ops exactly) can exceed; they take the
     # exact host fallback.
@@ -154,8 +148,8 @@ def fwd_batch(ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq,
         )(ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq)
 
     # mm path: batch-level so the rare mixed-cluster windows compact across
-    # the whole batch (simplify_kernel.simplify_batch_compact — the window
-    # table conversions were the dominant simplify cost, PERF.md).
+    # the whole batch (simplify_kernel.simplify_batch_compact), converting
+    # only the compacted slots' window tables.
     from portello_tpu.kernels.simplify_kernel import simplify_batch_compact
 
     l_codes, l_lens, l_n, ref2_pos, mapped, overflow = jax.vmap(
@@ -242,13 +236,10 @@ def rev_chain_batch(ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
     """Whole reverse chain — shift stage A, stage B, capped fwd leg with the
     batch-level (compacted-simplify) forward body — as ONE XLA program.
 
-    The historical stage split existed because gather-built intermediate
-    streams fused into the downstream prefix scans and serialized them
-    (~7x, scripts/profile_isolate.py).  On the mm path the gathers are gone
-    (one-hot matmuls throughout) and the fused program measures equal to the
-    staged sum (scripts/profile_fused_rev.py: 1.47-1.55 vs 1.48-1.61
-    ms/batch, within run noise) while cutting production dispatches 3 -> 1
-    per rev batch.
+    The gather path keeps a stage split so gather-built intermediate
+    streams cannot fuse into the downstream prefix scans.  On the mm path
+    the gathers are gone (one-hot matmuls throughout), so the chain is one
+    dispatch per rev batch instead of three.
     """
     from portello_tpu.kernels.shift_kernel import _shift_stage_a, _shift_stage_b
 
@@ -283,12 +274,9 @@ def rev_batch(ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
     (``rev_chain_batch``); a chain of separate device calls — shift stage A,
     stage B, then the forward pipeline — on the gather path.
 
-    The gather path keeps the stage split: compiling it into one XLA program
-    triggers a fusion pathology on TPU (gather-built intermediate streams
-    fuse into the downstream prefix scans and serialize them — measured ~7x
-    wall-clock in scripts/devtime.py).  The mm path has no gathers, and the
-    fused form measured equal-per-batch with 3x fewer dispatches
-    (scripts/profile_fused_rev.py).
+    The gather path keeps the stage split, so gather-built intermediate
+    streams cannot fuse into the downstream prefix scans.  The mm path has
+    no gathers and runs as one program (3x fewer dispatches).
     """
     kw = dict(max_out=max_out, max_clusters=max_clusters, window=window, mm=mm,
               max_rows=max_rows)
@@ -397,9 +385,9 @@ class DeviceEngine:
         # Rev-item routing: True (default) runs the reverse-contig indel
         # left-shift (reference read_alignment_scanner.rs:159-176) on the
         # host during prep — a few microseconds of byte compares — so rev
-        # items dispatch the SAME fwd device graph as fwd items.  The device
-        # shift chain costs ~3x the fwd graph on-chip (PERF.md round 3);
-        # PTPU_HOST_SHIFT=0 (or host_shift=False) restores it.
+        # items dispatch the SAME fwd device graph as fwd items.
+        # PTPU_HOST_SHIFT=0 (or host_shift=False) routes them through the
+        # device shift chain instead.
         import os as _os
 
         self.host_shift = (
@@ -412,12 +400,13 @@ class DeviceEngine:
         self._n_items = 0
         if platform == "cpu":
             jax.config.update("jax_platforms", "cpu")
-        # platform == "tpu"/None: keep the default backend selection
-        # mm = one-hot-matmul expansion formulation: ~10-100x on TPU where XLA
-        # serializes gathers; slower than native gathers on CPU (expand.py).
-        self.use_mm = (
-            use_mm if use_mm is not None else jax.default_backend() == "tpu"
-        )
+        if use_mm is None:
+            from portello_tpu.backend import select_dispatch
+
+            use_mm = select_dispatch(
+                jax.default_backend(), jax.local_device_count()
+            ).mm
+        self.use_mm = use_mm
 
     # -- work item preparation (host side) --------------------------------
     def _pick_bucket(

@@ -1,6 +1,6 @@
 """Read-to-reference block maps: the liftover index.
 
-TPU-native replacement for the reference's ``ReadToRefTreeMap``
+Dense-array replacement for the reference's ``ReadToRefTreeMap``
 (reference lib/rust-vc-utils/src/bam_utils/read_to_ref_map.rs:59-137): instead of a
 BTreeMap we keep two parallel sorted dense arrays (``keys`` = read positions
 starting a block, ``vals`` = reference position at the block start or ``NONE`` for
@@ -133,7 +133,8 @@ def build_dense_read_to_ref_map(
     """Dense per-read-position map to reference positions (NONE where unmapped).
 
     Equivalent of get_read_segment_to_ref_pos_map (read_to_ref_map.rs:17-41).  The
-    dense form is the natural TPU layout; provided for library parity and tests.
+    dense form is the natural device layout; provided for library parity and
+    tests.
     """
     out = np.full(seq_len, NONE, dtype=np.int64)
     ref_starts, read_starts = cg.op_start_positions(cig, ref_pos, ignore_hard_clip)

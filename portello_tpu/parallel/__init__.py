@@ -1,7 +1,7 @@
-"""Multi-chip / multi-host parallelism.
+"""Multi-device / multi-host parallelism.
 
 The reference's concurrency model is single-process rayon threading over 20 Mb
-genome windows (SURVEY.md section 2d).  The TPU-native equivalent implemented
+genome windows (SURVEY.md section 2d).  The device equivalent implemented
 here: a 1-D ``data`` device mesh; read work-item batches sharded along the
 batch axis; the contig index and reference windows travel with their batch
 rows (fully data-parallel, no cross-item communication is required by the

@@ -2,16 +2,16 @@
 
 The liftover workload is embarrassingly parallel across reads, so the natural
 mesh is 1-D over a ``data`` axis with every batch tensor sharded on dim 0 and
-all outputs likewise; XLA inserts no collectives on the hot path (the ideal
-case for ICI).  The same entry points serve single-host multi-chip (one mesh
-over local devices) and multi-host (jax.distributed + the same named sharding
-over the global mesh).
+all outputs likewise; XLA inserts no collectives on the hot path, so the
+device interconnect's topology does not matter.  The same entry points serve
+single-host multi-device (one mesh over local devices) and multi-host
+(jax.distributed + the same named sharding over the global mesh).
 
 The reverse-contig pipeline ships in two forms: the production **fused
 chain** on the mm path (one program: shift A + B + capped fwd leg;
 models/pipeline_model.rev_chain_batch) and the **stage-split chain** on the
 gather path (separate dispatches with device-resident sharded intermediates,
-required to avoid the TPU gather-into-scan fusion pathology).
+so gathers cannot fuse into the prefix scans).
 ``make_sharded_rev_step`` shards whichever form ``mm`` selects — the same
 graph the engine runs.
 """

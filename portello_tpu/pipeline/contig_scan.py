@@ -3,7 +3,7 @@
 Behavioral equivalent of the reference contig alignment scanner
 (reference src/contig_alignment_scanner/mod.rs:25-459 plus its three post-pass
 filters).  The output ``AllContigMappingInfo`` (ordered by contig index) is the
-single cross-phase data structure: in the TPU pipeline it is flattened into
+single cross-phase data structure: in the device pipeline it is flattened into
 dense per-segment block tensors and replicated across hosts.
 """
 

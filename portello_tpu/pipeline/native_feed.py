@@ -457,7 +457,7 @@ def scan_and_remap_reads_native(
     cram_reference=None,
 ) -> dict:
     """Native-feed phase 2; returns the stats dict.  Raises RuntimeError when
-    the native library can't build (caller falls back to the Python path).
+    the native library can't build.
 
     CRAM input streams directly: a producer thread decodes records and
     pushes uncompressed BAM bytes through a bounded in-memory queue into
@@ -483,21 +483,16 @@ def scan_and_remap_reads_native(
     )
     contig_list = ChromList.from_bam_filename(read_to_assembly_bam)
     buckets = list(buckets if buckets is not None else DEFAULT_BUCKETS)
-    mm = use_mm if use_mm is not None else jax.default_backend() == "tpu"
+    from portello_tpu.backend import select_dispatch
 
-    # Multi-chip data parallelism: on a multi-device host, dispatch each
-    # fixed-shape batch through the sharded mesh steps (1-D data mesh; the
-    # same graphs the multichip dryrun validates).  Auto on TPU;
-    # PTPU_SHARD=1/0 forces (tests exercise it on the virtual CPU mesh).
     n_dev = jax.local_device_count()
-    force_shard = {"1": True, "0": False}.get(os.environ.get("PTPU_SHARD", ""))
-    use_shard = (
-        force_shard
-        if force_shard is not None
-        else (jax.default_backend() == "tpu" and n_dev > 1)
-    )
+    plan = select_dispatch(jax.default_backend(), n_dev)
+    mm = plan.mm if use_mm is None else use_mm
+    # Multi-device data parallelism: dispatch each fixed-shape batch through
+    # the sharded mesh steps (1-D data mesh over the LOCAL devices).
+    use_shard = plan.shard
     if use_shard and batch_size % n_dev != 0:
-        if force_shard:
+        if os.environ.get("PTPU_SHARD") == "1":
             raise SystemExit(
                 f"PTPU_SHARD=1 requires --batch-size divisible by the "
                 f"{n_dev} local devices (got {batch_size})"
@@ -537,18 +532,12 @@ def scan_and_remap_reads_native(
                 sharded_fns[key] = mk(mesh, **kw)
             return sharded_fns[key]
 
-    # Resident slot mode (VERDICT r4 #1a/#2; kernels/resident.py): the genome
-    # stays in device HBM as a superblock table and read rows transfer PACKED
-    # — the fill's 24 KB/item ref memcpy + nibble decode and 3/4 of the
-    # per-batch H2D disappear.  Default on for the TPU mm path under
-    # host-shift routing; PTPU_RESIDENT=1/0 forces.
-    host_shift = os.environ.get("PTPU_HOST_SHIFT", "1") != "0"
-    force_res = {"1": True, "0": False}.get(os.environ.get("PTPU_RESIDENT", ""))
-    use_resident = (
-        force_res
-        if force_res is not None
-        else (mm and jax.default_backend() == "tpu")
-    ) and host_shift
+    # Resident slot mode (kernels/resident.py): the genome stays in device
+    # memory as a superblock table and read rows transfer PACKED — the
+    # fill's per-item reference memcpy + nibble decode and 3/4 of the
+    # per-batch H2D disappear.  Requires host-shift routing (the selector
+    # turns it off under PTPU_HOST_SHIFT=0, as the C++ gate does).
+    use_resident = plan.resident
     res_words = res_goff = None
     split_global_base = None
     if use_resident:
@@ -569,6 +558,7 @@ def scan_and_remap_reads_native(
             f"Resident reference table: {words_np.nbytes / 2**20:.1f} MiB in "
             "device memory; packed read rows"
         )
+        del words_np
 
     header = get_alignment_file_header(ref_chrom_list, cmdline).encode()
 
@@ -846,6 +836,10 @@ def scan_and_remap_reads_native(
     stats["t_prep"] = t_prep
     stats["t_dev"] = t_dev
     stats["t_post"] = t_post
+    # device memory while this run's arrays (the resident table included)
+    # are still alive; None on backends without memory stats
+    mem = jax.local_devices()[0].memory_stats() or {}
+    stats["device_bytes_in_use"] = mem.get("bytes_in_use")
     global _last_stats
     _last_stats = stats
     return stats

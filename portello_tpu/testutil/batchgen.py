@@ -21,8 +21,8 @@ from portello_tpu.testutil.simulate import apply_edits, rand_seq
 #: per 18 kb read, ~45 indel clusters); contig-to-ref blocks within the read
 #: span ~1.2/kb (~25).  The bucket is sized to the p99-ish of that profile —
 #: the update-grid rows U = 2*max_ops + max_blocks scale the whole liftover
-#: stage, so a tight primary bucket is ~2x wall clock over a loose one
-#: (PERF.md round 2).  Items exceeding a bound spill to the wider buckets or
+#: stage, so the primary bucket is kept tight.  Items exceeding a bound spill
+#: to the wider buckets or
 #: the exact host path (DEFAULT_BUCKETS in models/pipeline_model.py).
 HIFI_BUCKET = BucketConfig(
     max_ops=128, max_blocks=48, max_seq=24576, max_clusters=96, window=48

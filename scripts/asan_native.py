@@ -4,7 +4,7 @@ scripts/tsan_native.py; SURVEY.md section 5 race/failure detection).
 TSAN sees data races but not lifetime bugs; this is the harness that caught
 the round-5 WorkPool stale-epoch corruption (a worker invoking a destroyed
 pool_run closure after the next epoch reset `next` — the wandering RA>=2
-suite crashes/hangs, ROUND5.md).  Recipe:
+suite crashes/hangs).  Recipe:
 
     python scripts/asan_native.py --build-asan          # -> /tmp/ptscan_asan.so
     LD_PRELOAD="/lib/x86_64-linux-gnu/libasan.so.8 /lib/x86_64-linux-gnu/libstdc++.so.6" \

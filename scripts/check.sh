@@ -14,14 +14,14 @@ cd "$(dirname "$0")/.."
 
 fail=0
 
-echo "[check] lint_lite over portello_tpu/ tests/ scripts/ bench.py ..."
+echo "[check] lint_lite over portello_tpu/ tests/ scripts/ bench.py chip_smoke.py ..."
 # shellcheck disable=SC2046
 python scripts/lint_lite.py \
     $(find portello_tpu tests scripts -name "*.py") \
-    bench.py __graft_entry__.py || fail=1
+    bench.py chip_smoke.py __graft_entry__.py || fail=1
 
 echo "[check] compileall ..."
-python -m compileall -q portello_tpu tests scripts bench.py \
+python -m compileall -q portello_tpu tests scripts bench.py chip_smoke.py \
     __graft_entry__.py || fail=1
 
 echo "[check] g++ -Wall -Wextra -Werror -fsyntax-only io/native/*.cc ..."

@@ -1,7 +1,7 @@
-"""WGS-shaped stress soak with memory accounting (VERDICT r4 #6).
+"""WGS-shaped stress soak with memory accounting.
 
-Builds a >=100k-read scenario with MIXED 2-60 kb reads (log-uniform, so the
-mass spans all three device buckets) and indel rates high enough that long
+Builds a >=100k-read scenario with MIXED 2-60 kb reads (a wide log-normal,
+so the mass spans all three device buckets) and indel rates high enough that long
 reads exceed the primary bucket's op budget (spill to the mid/wide buckets,
 the widest reads to the exact host path), then drives:
 
@@ -17,7 +17,7 @@ pipeline's design RSS is input-size-independent (bounded slot arenas +
 bounded queues) plus the reference/contig index.
 
 Usage: python scripts/soak_scale.py [n_reads] [--skip-half]
-Writes its scenario under .bench_cache/soak_scale_<n>/ (reused when
+Writes its scenario under .bench_cache/ (testutil/wgs.py, reused when
 present) and prints one JSON summary line at the end.
 """
 
@@ -32,131 +32,19 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import numpy as np
 
-BASES = np.frombuffer(b"ACGT", np.uint8)
+def soak_params(n_reads, seed):
+    """A WGS-shaped scenario (testutil/wgs.py) at 5% genome scale with a
+    wide read-length spread (2-60 kb) and an indel every ~150 bp, so a long
+    read carries ~400 ops: past the 128/256-op buckets into the wide one,
+    the longest past even that (host fallback)."""
+    from portello_tpu.testutil.wgs import WgsParams
 
-
-def _rand_seq(rng, n):
-    return rng.choice(BASES, size=n)
-
-
-def _edited_walk(rng, ref, lo, hi, event_bp, max_indel=6):
-    """Vectorized-ish derived sequence + cigar over ref[lo:hi): M runs copied
-    from the reference with I/D events every ~event_bp (geometric gaps).
-    Returns (seq, cigar list[(code,len)]) — loops over EVENTS, not bases."""
-    from portello_tpu.ops import cigar as cg
-
-    parts = []
-    ops = []
-    pos = lo
-    while pos < hi:
-        gap = int(rng.geometric(1.0 / event_bp))
-        run = min(gap, hi - pos)
-        parts.append(ref[pos : pos + run])
-        if ops and ops[-1][0] == cg.M:
-            ops[-1] = (cg.M, ops[-1][1] + run)
-        else:
-            ops.append((cg.M, run))
-        pos += run
-        if pos >= hi:
-            break
-        ln = int(rng.integers(1, max_indel + 1))
-        if rng.random() < 0.5:
-            parts.append(_rand_seq(rng, ln))
-            ops.append((cg.I, ln))
-        else:
-            ln = min(ln, hi - pos)
-            ops.append((cg.D, ln))
-            pos += ln
-    return (
-        np.concatenate(parts) if parts else np.zeros(0, np.uint8),
-        ops,
+    return WgsParams(
+        seed=seed, n_reads=n_reads, chrom_scale=0.05, contig_min=300_000,
+        contig_max=1_000_000, read_median=11_000, read_sigma=0.9,
+        read_event_bp=150,
     )
-
-
-def build_scenario(root, n_reads, rng):
-    from portello_tpu.io.bam import BamHeader, BamRecord, BamWriter
-    from portello_tpu.ops import cigar as cg
-    from portello_tpu.tools.index import build_bai
-
-    os.makedirs(root, exist_ok=True)
-    chrom_len = 3_000_000
-    chr1 = _rand_seq(rng, chrom_len)
-    chr2 = _rand_seq(rng, chrom_len // 2)
-    with open(os.path.join(root, "ref.fa"), "wb") as f:
-        for name, seq in (("chr1", chr1), ("chr2", chr2)):
-            f.write(f">{name}\n".encode())
-            for i in range(0, len(seq), 80):
-                f.write(seq[i : i + 80].tobytes() + b"\n")
-
-    ref_header = BamHeader.from_refs(
-        [("chr1", len(chr1)), ("chr2", len(chr2))]
-    )
-    # three contigs (fwd / rev / fwd) tiling both chroms, ~1.2 events/kb
-    from portello_tpu.testutil.simulate import rev_comp
-
-    specs = [("ctg1", 0, chr1, 5_000, 2_600_000, True),
-             ("ctg2", 0, chr1, 2_610_000, 2_990_000, False),
-             ("ctg3", 1, chr2, 10_000, 1_480_000, True)]
-    contigs = []
-    contig_records = []
-    for name, tid, chrom, lo, hi, fwd in specs:
-        seq, ops = _edited_walk(rng, chrom, lo, hi, event_bp=800)
-        cig = cg.cigar(*ops)
-        rec_seq = seq if fwd else rev_comp(seq)
-        rec = BamRecord(
-            qname=name.encode(), flag=0 if fwd else 16, tid=tid, pos=lo,
-            mapq=60, cigar=cig if fwd else cig[::-1].copy(), seq=rec_seq,
-            qual=np.full(len(seq), 40, np.uint8),
-        )
-        rec.push_tag(b"NM", b"i", 0)
-        contig_records.append(rec)
-        contigs.append((name, seq, fwd))
-    contig_records.sort(key=lambda r: (r.tid, r.pos))
-    cbam = os.path.join(root, "asm_to_ref.bam")
-    with BamWriter(cbam, ref_header) as w:
-        for r in contig_records:
-            w.write(r)
-    build_bai(cbam)
-
-    # reads: mixed 2-60 kb log-uniform, indel event every ~150 bp so a 60 kb
-    # read carries ~400 ops (> the 128/256-op buckets -> wide bucket) and the
-    # occasional monster exceeds even that (host fallback)
-    contig_header = BamHeader.from_refs(
-        [(name, len(seq)) for name, seq, _ in contigs]
-    )
-    rbam = os.path.join(root, "read_to_asm.bam")
-    lens = np.exp(
-        rng.uniform(np.log(2_000), np.log(60_000), size=n_reads)
-    ).astype(np.int64)
-    tids = rng.integers(0, len(contigs), size=n_reads)
-    n_written = 0
-    with BamWriter(rbam, contig_header) as w:
-        for ci, (name, cseq, _fwd) in enumerate(contigs):
-            idx = np.nonzero(tids == ci)[0]
-            starts = rng.integers(
-                0, np.maximum(len(cseq) - lens[idx], 1), size=len(idx)
-            )
-            order = np.argsort(starts, kind="stable")
-            for k in order:
-                ri, pos, want = int(idx[k]), int(starts[k]), int(lens[idx[k]])
-                hi = min(pos + want, len(cseq))
-                rseq, ops = _edited_walk(rng, cseq, pos, hi, event_bp=150)
-                if not len(rseq):
-                    continue
-                rec = BamRecord(
-                    qname=f"read{ri:06d}".encode(),
-                    flag=0 if rng.random() < 0.5 else 16,
-                    tid=ci, pos=pos, mapq=int(rng.integers(10, 61)),
-                    cigar=cg.cigar(*ops), seq=rseq,
-                    qual=rng.integers(10, 50, size=len(rseq)).astype(np.uint8),
-                )
-                rec.push_tag(b"NM", b"i", 0)
-                w.write(rec)
-                n_written += 1
-    build_bai(rbam)
-    return n_written
 
 
 _WRAP = r"""
@@ -212,25 +100,22 @@ def digest_bam(path):
 
 
 def run_scale(n_reads, rng_seed):
+    from portello_tpu.testutil.wgs import build_wgs_scenario
+
     here = os.path.dirname(os.path.abspath(__file__))
-    root = os.path.join(here, "..", ".bench_cache", f"soak_scale_{n_reads}")
-    marker = os.path.join(root, ".done")
-    if not os.path.exists(marker):
-        t0 = time.perf_counter()
-        n_written = build_scenario(
-            root, n_reads, np.random.default_rng(rng_seed)
-        )
-        with open(marker, "w") as f:
-            f.write(str(n_written))
-        sys.stderr.write(
-            f"[soak_scale] built {n_written} reads in "
-            f"{time.perf_counter() - t0:.0f}s\n"
-        )
+    t0 = time.perf_counter()
+    scn = build_wgs_scenario(
+        os.path.join(here, "..", ".bench_cache"),
+        soak_params(n_reads, rng_seed),
+    )
+    sys.stderr.write(
+        f"[soak_scale] scenario ready in {time.perf_counter() - t0:.0f}s\n"
+    )
     out = tempfile.mkdtemp(prefix="soakscale_")
     base = [
-        "--assembly-to-ref", os.path.join(root, "asm_to_ref.bam"),
-        "--read-to-assembly", os.path.join(root, "read_to_asm.bam"),
-        "--ref", os.path.join(root, "ref.fa"),
+        "--assembly-to-ref", scn.contig_bam,
+        "--read-to-assembly", scn.read_bam,
+        "--ref", scn.ref_fasta,
         "--device", "cpu", "--feed", "native",
     ]
     rec = {"n_reads": n_reads}

@@ -238,7 +238,7 @@ def test_hand_container_beta_huffman_byte_array_len(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Round-4 additions (VERDICT r3 #5): writer-independent serialisation
+# Writer-independent serialisation
 # fixtures for the three codecs whose framing was previously certified only
 # by this repo's own encoders — arith (method 6), fqzcomp (method 7), tok3
 # (method 8).  The byte streams below were derived with an INDEPENDENT
@@ -493,7 +493,7 @@ class TestTok3SpecStreams:
 
 
 # ---------------------------------------------------------------------------
-# ENCODER-golden fixtures (VERDICT r4 #5): the sections above pin what the
+# ENCODER-golden fixtures: the sections above pin what the
 # DECODERS accept; these pin the exact bytes this repo's encoders EMIT.
 # Expected streams are assembled from hand-written framing (headers,
 # descriptors, CAT frames, uint7 lengths — every byte annotated) plus

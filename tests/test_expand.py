@@ -4,7 +4,7 @@ across the full device pipeline.
 
 The gather formulation is conformance-tested against the exact host oracle
 (tests/test_device_engine.py), so mm == gather here extends that bit-equality
-chain to the TPU production path.
+chain to the matmul formulation.
 """
 
 import numpy as np

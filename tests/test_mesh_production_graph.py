@@ -1,6 +1,6 @@
 """The sharded production graphs (8-device CPU mesh via conftest) must be
 bit-identical to the single-device stage-split chain the engine runs —
-VERDICT r1 weak #4: the dryrun must validate the graph production uses."""
+the dryrun must validate the graph production uses."""
 
 import numpy as np
 import pytest

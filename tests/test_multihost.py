@@ -170,10 +170,10 @@ def test_dcn_coordinator_handshake_two_processes(tmp_path):
 
 
 def test_local_workers_cram_no_transcode(tmp_path, monkeypatch):
-    """--local-workers on CRAM input runs WITHOUT the temp-BAM transcode
-    (VERDICT r3 #7): each worker's feed serves its contig shard by .crai
-    slice seek; outputs equal the single-process CRAM run and no
-    ptpu_cram_* temp file is ever created."""
+    """--local-workers on CRAM input runs WITHOUT the temp-BAM transcode:
+    each worker's feed serves its contig shard by .crai slice seek;
+    outputs equal the single-process CRAM run and no ptpu_cram_* temp file
+    is ever created."""
     from portello_tpu.io import cram
 
     scn = make_scenario(str(tmp_path), rng=np.random.default_rng(29))

@@ -338,7 +338,7 @@ def test_native_feed_malformed_sa_error_contract(tmp_path):
 
 def test_native_feed_sharded_multidevice(tmp_path, monkeypatch):
     """Multi-device data-parallel dispatch (PTPU_SHARD=1 on the virtual
-    8-device CPU mesh; auto on multi-chip TPU hosts) must produce output
+    8-device CPU mesh; auto on multi-GPU hosts) must produce output
     record-identical to the single-device paths — for both kernel
     formulations, including the fused mm rev chain."""
     rng = np.random.default_rng(53)
@@ -463,9 +463,9 @@ def test_native_feed_all_host_routing(tmp_path):
 
 
 def test_native_feed_resident_mode(tmp_path, monkeypatch):
-    """Resident slot mode (PTPU_RESIDENT=1; auto on the TPU mm path): the
+    """Resident slot mode (PTPU_RESIDENT=1): the
     C++ fill emits packed nibble rows + ref chrom indices, the device
-    fetches reference windows from the HBM-resident superblock table
+    fetches reference windows from the device-resident superblock table
     (kernels/resident.py), and output must be record-identical to the
     table-slot run — including reverse-contig reads (host-shifted, flip
     re-packed rows) and odd-length reads (nibble parity)."""
@@ -516,7 +516,7 @@ def test_pool_epoch_stress():
     closure pointer, and claim a ticket of the next epoch once ``next`` is
     reset — that stale invocation of a destroyed std::function was the
     wandering RA>=2 suite corruption (ASAN stack-use-after-scope at
-    pool_worker's ``(*fn)(i)``; ROUND5.md).  ptscan_dbg_pool_stress
+    pool_worker's ``(*fn)(i)``).  ptscan_dbg_pool_stress
     alternates two distinct epoch bodies over rapid tiny epochs and returns
     nonzero if any item ran the wrong epoch's body; under ASAN the stale
     call itself aborts.  Pre-fix this tripped within ~one 200k-epoch trial

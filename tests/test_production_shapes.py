@@ -5,7 +5,7 @@ invariants are shape-dependent (the packed prev_end2 cummax needs
 ref_span <= 2^16, the proven update-grid bound max_ops + max_blocks, the
 max_ops lane cap on the rev leg) — this exercises the real HiFi bucket
 (128/48/24576/96/48) with 18 kb items on CPU so those bounds are hit by a
-conformance test, not only by the TPU bench.
+conformance test, not only by the benchmark.
 """
 
 import numpy as np

@@ -17,7 +17,7 @@ from portello_tpu.ops import cigar as cg
 
 jax = pytest.importorskip("jax")
 
-from tests.test_liftover_kernel import random_cigar  # noqa: E402
+from test_liftover_kernel import random_cigar  # noqa: E402
 
 
 def test_pick_bucket_rows_dimension():
@@ -68,7 +68,7 @@ def test_custom_tight_bucket_spills_not_falls_back(tmp_path):
     from portello_tpu.pipeline.contig_scan import scan_contig_bam
     from portello_tpu.pipeline.read_scan import scan_and_remap_reads
     from portello_tpu.utils.chrom_list import ChromList
-    from tests.test_engine_fallbacks import build_inputs
+    from test_engine_fallbacks import build_inputs
 
     contig_bam, read_bam, fasta = build_inputs(tmp_path)
     ref_chrom_list = ChromList.from_bam_filename(contig_bam)

@@ -19,7 +19,7 @@ from portello_tpu.models.pipeline_model import (  # noqa: E402
     _count_update_rows,
     _lift_core,
 )
-from tests.test_liftover_kernel import random_cigar  # noqa: E402
+from test_liftover_kernel import random_cigar  # noqa: E402
 
 CFG = BucketConfig(max_ops=48, max_blocks=24, max_seq=1024)
 
